@@ -3,7 +3,7 @@
 The reference ships ``eigmodes128`` as a precomputed data blob (loaded at
 /root/reference/src/zeldovich.cpp:794-830; STRIPPED in this build
 environment, so the comparison cannot run here).  This repo regenerates
-the table from first principles (zeldovich_tpu/ops/lattice.py, Ewald
+the table from first principles (zeldovich/ops/lattice.py, Ewald
 sums of the SC-lattice dynamical matrix per Marcos et al. 2006 /
 Garrison et al. 2016).  When an upstream blob is available, this script
 is the one-command external cross-validation:
@@ -45,12 +45,12 @@ def main(argv):
     ppd, theirs = load_table(theirs_path)
     ours_path = (
         Path(__file__).parent.parent
-        / "zeldovich_tpu" / "assets" / f"eigmodes{ppd}"
+        / "zeldovich" / "assets" / f"eigmodes{ppd}"
     )
     if ours_path.exists():
         _, ours = load_table(ours_path)
     else:
-        from zeldovich_tpu.ops.lattice import generate_eigmodes_table
+        from zeldovich.ops.lattice import generate_eigmodes_table
 
         print(f"generating {ppd}^3 table (no local asset)...", flush=True)
         ours = generate_eigmodes_table(ppd, verbose=True)

@@ -23,8 +23,8 @@ def main():
     ap.add_argument("--alpha", type=float, default=2.0)
     args = ap.parse_args()
 
-    from zeldovich_tpu.ops.lattice import generate_eigmodes_table
-    from zeldovich_tpu.ops.plt import save_eigmodes
+    from zeldovich.ops.lattice import generate_eigmodes_table
+    from zeldovich.ops.plt import save_eigmodes
 
     t0 = time.time()
     table = generate_eigmodes_table(args.N, alpha=args.alpha, verbose=True)

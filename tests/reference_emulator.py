@@ -5,7 +5,7 @@ phase-1 semantics (LoadPlane walk with serial RNG skip bookkeeping, mirrored
 Hermitian twin slabs, BlockArray y-shift on reload, y-Nyquist zeroing, ky=0
 fix-up) used ONLY as a test oracle for the vectorized/sharded device
 implementation.  Keeps its own serial RNG walk so that the closed-form
-offset math in zeldovich_tpu.ops is independently validated.
+offset math in zeldovich.ops is independently validated.
 """
 
 from __future__ import annotations
@@ -14,9 +14,9 @@ import math
 
 import numpy as np
 
-from zeldovich_tpu.ops import pcg
-from zeldovich_tpu.ops.mt19937 import MT19937
-from zeldovich_tpu.utils.power import PowerSpectrum
+from zeldovich.ops import pcg
+from zeldovich.ops.mt19937 import MT19937
+from zeldovich.utils.power import PowerSpectrum
 
 
 class V1Rng:

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from zeldovich_tpu.ops import accurate, pcg_device
+from zeldovich.ops import accurate, pcg_device
 
 
 def test_sincos_2pi_ulp():

@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zeldovich_tpu.parallel.mesh import make_mesh
-from zeldovich_tpu.utils.cache import BoundedCache
-from zeldovich_tpu.utils.checkpoint import load_sharded, save_sharded
+from zeldovich.parallel.mesh import make_mesh
+from zeldovich.utils.cache import BoundedCache
+from zeldovich.utils.checkpoint import load_sharded, save_sharded
 
 pytestmark = pytest.mark.skipif(
     jax.device_count() < 8, reason="needs 8 virtual devices"

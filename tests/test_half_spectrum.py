@@ -12,10 +12,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zeldovich_tpu.models.pipeline import Zeldovich
-from zeldovich_tpu.utils.params import Parameters
+from zeldovich.models.pipeline import Zeldovich
+from zeldovich.utils.params import Parameters
 
-ASSETS = Path(__file__).parent.parent / "zeldovich_tpu" / "assets"
+ASSETS = Path(__file__).parent.parent / "zeldovich" / "assets"
 
 
 def make_params(ppd=16, **over):
@@ -94,7 +94,7 @@ def test_half_matches_pair_f32():
 
 def test_c2r_y_pair_matches_dense():
     """The c2r y matmul == complex transform of the assembled spectrum."""
-    from zeldovich_tpu.ops import mmfft
+    from zeldovich.ops import mmfft
 
     rng = np.random.default_rng(7)
     n, h = 16, 8
@@ -149,11 +149,10 @@ def test_c2r_y_pair_z_sliced():
 
     The transform length must come from the ky axis (2*(h+1-1)), never
     the Z extent: out-of-core stripes and validation probes pass blocks
-    whose Z extent differs from the grid size (this inference bug is what
-    crashed the round-3 1024-class c2r probe).  Covers the dense matmul,
-    folded, and df64 forms.
+    whose Z extent differs from the grid size.  Covers the dense matmul
+    and df64 forms.
     """
-    from zeldovich_tpu.ops import mmfft
+    from zeldovich.ops import mmfft
 
     rng = np.random.default_rng(23)
     n, h, Z, X = 16, 8, 4, 16  # Z extent != transform length on purpose
@@ -172,18 +171,6 @@ def test_c2r_y_pair_z_sliced():
     scale = np.abs(full).max()
     np.testing.assert_allclose(
         stripe, full[..., 2 : 2 + Z, :], atol=1e-12 * scale, rtol=0
-    )
-    # folded XLA form (ZT_FOLD_C2R experiment route): f32 matrices by
-    # design (the TPU kernel twin), so f32-grade tolerance
-    import jax
-
-    folded = np.asarray(
-        mmfft._c2r_y_pair_folded(
-            jnp.asarray(spm[..., 2 : 2 + Z, :]), jax.lax.Precision.HIGHEST
-        )
-    )
-    np.testing.assert_allclose(
-        folded, full[..., 2 : 2 + Z, :], atol=1e-6 * scale, rtol=0
     )
     # df64 pair form (the --dtype df64 transform path)
     s32 = jnp.asarray(spm[..., 2 : 2 + Z, :], jnp.float32)
@@ -205,7 +192,7 @@ def test_c2r_assembled_matches_dense():
     the dense [n, h+1] matmul form, and both match numpy ground truth."""
     import jax
 
-    from zeldovich_tpu.ops import mmfft
+    from zeldovich.ops import mmfft
 
     rng = np.random.default_rng(11)
     n, h = 32, 16
@@ -236,3 +223,25 @@ def test_c2r_assembled_matches_dense():
     scale = np.abs(want).max()
     np.testing.assert_allclose(asm, dense, atol=1e-12 * scale, rtol=0)
     np.testing.assert_allclose(asm, want, atol=1e-12 * scale, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["plain", "plt", "fixed_power", "density"])
+@pytest.mark.parametrize("dtype", [jnp.float64, jnp.float32])
+def test_half_pair_forward_matches_complex(dtype, case):
+    """The pair route's fused step (_half_pair_forward) == the default
+    complex route (synthesis + jnp.fft), plain, PLT, fixed power and
+    density-only."""
+    from helpers import model, plt_model
+
+    over = {"fixed_power": {"ZD_qPk_fix_to_mean": 1},
+            "density": {"ZD_qdensity": 2}}.get(case, {})
+    build = plt_model if case == "plt" else model
+    m = build(16, dtype, **over)
+    pair = np.asarray(m.xspace_half_pair())
+    got = pair[:, 0] + 1j * pair[:, 1]
+    want = np.asarray(m.xspace())
+    assert got.shape == want.shape
+    rel = 1e-12 if dtype == jnp.float64 else 2e-5
+    np.testing.assert_allclose(
+        got, want, atol=rel * np.abs(want).max(), rtol=0
+    )

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from zeldovich_tpu.ops.lattice import (
+from zeldovich.ops.lattice import (
     dynamical_matrix,
     generate_eigmodes_table,
     growing_mode,
@@ -61,7 +61,7 @@ def test_real_space_tensor_matches_numeric_hessian():
     so an algebra slip in _real_space_tensor cannot hide."""
     from scipy.special import erfc as _erfc
 
-    from zeldovich_tpu.ops.lattice import _real_space_tensor
+    from zeldovich.ops.lattice import _real_space_tensor
 
     alpha = 2.0
     R, s = _real_space_tensor(alpha, rcut=2.2)
@@ -127,7 +127,7 @@ def test_shipped_table_spectrum_statistics():
 
     path = (
         Path(__file__).parent.parent
-        / "zeldovich_tpu" / "assets" / "eigmodes128"
+        / "zeldovich" / "assets" / "eigmodes128"
     )
     if not path.exists():
         pytest.skip("eigmodes128 asset not present")

@@ -5,7 +5,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from zeldovich_tpu.ops import mmfft
+from zeldovich.ops import mmfft
 
 
 def pair_of(z):

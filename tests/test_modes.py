@@ -6,13 +6,13 @@ import pytest
 import jax.numpy as jnp
 
 from reference_emulator import emulate_kgrid
-from zeldovich_tpu.ops.modes import SynthConfig, SynthTables, synthesize_slab
-from zeldovich_tpu.utils.params import Parameters
-from zeldovich_tpu.utils.power import PowerSpectrum, mode_amplitude_tables
+from zeldovich.ops.modes import SynthConfig, SynthTables, synthesize_slab
+from zeldovich.utils.params import Parameters
+from zeldovich.utils.power import PowerSpectrum, mode_amplitude_tables
 
 from pathlib import Path
 
-ASSETS = Path(__file__).parent.parent / "zeldovich_tpu" / "assets"
+ASSETS = Path(__file__).parent.parent / "zeldovich" / "assets"
 
 
 def make_setup(ppd=8, **over):
@@ -171,10 +171,10 @@ def test_hermitian_symmetry_gives_real_field():
 def test_v1_matches_emulator():
     """Legacy ZD_Version=1 (MT19937 + rejection) vs the serial emulator."""
     import jax.numpy as jnp
-    from zeldovich_tpu.ops import v1 as v1_ops
+    from zeldovich.ops import v1 as v1_ops
 
     param, Pk, cfg, tables = make_setup(ppd=8, ZD_Version=1, ZD_NumBlock=4)
-    from zeldovich_tpu.utils.power import mode_amplitude_tables
+    from zeldovich.utils.power import mode_amplitude_tables
 
     pk_n2, _ = mode_amplitude_tables(Pk, param)
     D = jnp.asarray(v1_ops.generate_D_half(param, Pk, pk_n2))
@@ -186,8 +186,8 @@ def test_v1_matches_emulator():
 def test_v1_numblock_changes_phases():
     """v1 phases depend on ZD_NumBlock (the documented v1 defect)."""
     import jax.numpy as jnp
-    from zeldovich_tpu.ops import v1 as v1_ops
-    from zeldovich_tpu.utils.power import mode_amplitude_tables
+    from zeldovich.ops import v1 as v1_ops
+    from zeldovich.utils.power import mode_amplitude_tables
 
     outs = []
     for nb in (2, 4):

@@ -6,7 +6,7 @@ import pytest
 import jax.numpy as jnp
 
 from test_modes import make_setup, full_grid
-from zeldovich_tpu.ops.modes_fast import synthesize_full_fast
+from zeldovich.ops.modes_fast import synthesize_full_fast
 
 
 def assert_same(fast, exact):
@@ -47,16 +47,16 @@ def test_fast_gen_phi_and_input_phi():
 
 def test_fast_plt(tmp_path):
     from test_plt import synthetic_table
-    from zeldovich_tpu.ops import plt as plt_ops
-    from zeldovich_tpu.ops.modes import SynthConfig, SynthTables
-    from zeldovich_tpu.utils.params import Parameters
-    from zeldovich_tpu.utils.power import PowerSpectrum, mode_amplitude_tables
+    from zeldovich.ops import plt as plt_ops
+    from zeldovich.ops.modes import SynthConfig, SynthTables
+    from zeldovich.utils.params import Parameters
+    from zeldovich.utils.power import PowerSpectrum, mode_amplitude_tables
     from pathlib import Path
 
     table = synthetic_table(16, seed=3)
     eig_path = tmp_path / "eig"
     plt_ops.save_eigmodes(eig_path, table)
-    ASSETS = Path(__file__).parent.parent / "zeldovich_tpu" / "assets"
+    ASSETS = Path(__file__).parent.parent / "zeldovich" / "assets"
     param = Parameters.from_dict(
         dict(
             BoxSize=100.0,

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from zeldovich_tpu import native
-from zeldovich_tpu.utils.output import OutputWriter, output_dtype, setup_output_dir
-from zeldovich_tpu.utils.params import Parameters
+from zeldovich import native
+from zeldovich.utils.output import OutputWriter, output_dtype, setup_output_dir
+from zeldovich.utils.params import Parameters
 
 
 def make_params(tmp_path, **over):

@@ -5,12 +5,12 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from zeldovich_tpu.models.outofcore import OutOfCoreZeldovich
-from zeldovich_tpu.models.pipeline import Zeldovich
-from zeldovich_tpu.utils.output import read_particles
-from zeldovich_tpu.utils.params import Parameters
+from zeldovich.models.outofcore import OutOfCoreZeldovich
+from zeldovich.models.pipeline import Zeldovich
+from zeldovich.utils.output import read_particles
+from zeldovich.utils.params import Parameters
 
-ASSETS = Path(__file__).parent.parent / "zeldovich_tpu" / "assets"
+ASSETS = Path(__file__).parent.parent / "zeldovich" / "assets"
 
 # full streamed-pipeline runs; CI's fast tier deselects with -m "not slow"
 pytestmark = pytest.mark.slow
@@ -71,7 +71,7 @@ def test_disk_backing(tmp_path):
     Zeldovich(p1).run()
     p2 = make_params(tmp_path / "b")
     m = OutOfCoreZeldovich(p2, slab_bytes=1 << 16, backing="disk")
-    from zeldovich_tpu.utils.output import setup_output_dir
+    from zeldovich.utils.output import setup_output_dir
 
     setup_output_dir(p2)  # memmap file lives under the output dir
     stage = m.stage_pass1()
@@ -90,7 +90,7 @@ def test_disk_backing_f_NL_drops_phi_stage(tmp_path):
     Zeldovich(p1).run()
     p2 = make_params(tmp_path / "b", **fnl)
     m = OutOfCoreZeldovich(p2, slab_bytes=1 << 16, backing="disk")
-    from zeldovich_tpu.utils.output import setup_output_dir
+    from zeldovich.utils.output import setup_output_dir
 
     setup_output_dir(p2)
     m.run(setup_dir=False)
@@ -102,7 +102,7 @@ def test_checkpoint_roundtrip(tmp_path):
     """stage_pass1 output is the PART1/PART2 boundary."""
     param = make_params(tmp_path)
     m = OutOfCoreZeldovich(param, slab_bytes=1 << 20)
-    from zeldovich_tpu.utils.output import setup_output_dir
+    from zeldovich.utils.output import setup_output_dir
 
     setup_output_dir(param)
     stage = m.stage_pass1()
@@ -122,7 +122,7 @@ def test_sharded_outofcore_matches(tmp_path):
 
     if jax.device_count() < 8:
         pytest.skip("needs 8 virtual devices")
-    from zeldovich_tpu.parallel.mesh import make_mesh
+    from zeldovich.parallel.mesh import make_mesh
 
     p1 = make_params(tmp_path / "a")
     Zeldovich(p1).run()
@@ -143,7 +143,7 @@ def test_sharded_outofcore_plt(tmp_path):
 
     if jax.device_count() < 8:
         pytest.skip("needs 8 virtual devices")
-    from zeldovich_tpu.parallel.mesh import make_mesh
+    from zeldovich.parallel.mesh import make_mesh
 
     plt_kw = dict(
         ZD_qPLT=1,
@@ -167,7 +167,7 @@ def test_sharded_outofcore_f_NL(tmp_path):
 
     if jax.device_count() < 8:
         pytest.skip("needs 8 virtual devices")
-    from zeldovich_tpu.parallel.mesh import make_mesh
+    from zeldovich.parallel.mesh import make_mesh
 
     fnl_kw = dict(ZD_f_NL=25.0, ZD_n_s=0.96, Omega_M=0.3)
     p1 = make_params(tmp_path / "a", **fnl_kw)
@@ -232,7 +232,7 @@ def test_one_compile_per_shape(tmp_path):
     (At 4096^3 with 64 slabs, a static y0 would mean 64 identical XLA
     compilations per pass.)
     """
-    from zeldovich_tpu.models.outofcore import _synth_ifft_zx, _synth_ifft_zx_pair
+    from zeldovich.models.outofcore import _synth_ifft_zx, _synth_ifft_zx_pair
 
     param = make_params(tmp_path)
     m = OutOfCoreZeldovich(param, slab_bytes=16 * 16 * 2 * 16 * 4, pair=False)
@@ -259,46 +259,6 @@ def test_pair_mode_matches(tmp_path):
         assert m.slab < p2.ppd
         m.run()
         compare_outputs(p1, p2)
-
-
-def test_forced_pallas_routing_matches_xla(tmp_path, monkeypatch):
-    """TPU slab-kernel routing (interpret mode via ZT_PALLAS_FORCE) ==
-    the XLA slab kernels, end-to-end at a gate-eligible grid (128)."""
-    import jax.numpy as jnp
-
-    import zeldovich_tpu.models.outofcore as ooc
-
-    p1 = make_params(tmp_path / "a", NP=128**3, CPD=128)
-    OutOfCoreZeldovich(p1, slab_bytes=1 << 22, dtype=jnp.float32).run()
-
-    monkeypatch.setenv("ZT_PALLAS_FORCE", "1")
-    from zeldovich_tpu.ops.pallas_fft import use_y_tiled, use_zx_folded
-
-    assert use_zx_folded(jnp.float32, 128) and use_y_tiled(jnp.float32, 128)
-    for f in (ooc._synth_ifft_zx_pair, ooc._ifft_y_pair,
-              ooc._fwd_y_phi_nl_pair, ooc._fwd_zx_pair):
-        f.clear_cache()
-    try:
-        p2 = make_params(tmp_path / "b", NP=128**3, CPD=128)
-        OutOfCoreZeldovich(p2, slab_bytes=1 << 22, dtype=jnp.float32).run()
-    finally:
-        monkeypatch.delenv("ZT_PALLAS_FORCE")
-        for f in (ooc._synth_ifft_zx_pair, ooc._ifft_y_pair,
-                  ooc._fwd_y_phi_nl_pair, ooc._fwd_zx_pair):
-            f.clear_cache()
-
-    for fa in sorted(p1.output_path.glob("ic_*")):
-        ra = read_particles(fa, p1.ICFormat)
-        rb = read_particles(p2.output_path / fa.name, p2.ICFormat)
-        np.testing.assert_array_equal(ra["i"], rb["i"])
-        scale = max(np.abs(ra["displ"]).max(), 1e-30)
-        np.testing.assert_allclose(
-            rb["displ"], ra["displ"], atol=2e-5 * scale, rtol=0
-        )
-        vscale = max(np.abs(ra["vel"]).max(), 1e-30)
-        np.testing.assert_allclose(
-            rb["vel"], ra["vel"], atol=2e-5 * vscale, rtol=0
-        )
 
 
 def test_matches_incore_v1(tmp_path):

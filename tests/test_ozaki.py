@@ -1,4 +1,4 @@
-"""Ozaki-scheme int8 matmuls: f64-grade accuracy without f64 MXU hardware."""
+"""Ozaki-scheme int8 matmuls: f64-grade accuracy from integer products."""
 
 from pathlib import Path
 
@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from zeldovich_tpu.ops import mmfft, ozaki
+from zeldovich.ops import mmfft, ozaki
 
-ASSETS = Path(__file__).parent.parent / "zeldovich_tpu" / "assets"
+ASSETS = Path(__file__).parent.parent / "zeldovich" / "assets"
 
 
 def test_omatmul_matches_f64():
@@ -49,8 +49,8 @@ def test_cfft_ozaki_matches_numpy(n, monkeypatch):
 # the fast tier
 def test_half_pipeline_ozaki_parity(monkeypatch):
     """f64 half-spectrum pipeline with int8 matmuls == plain f64 (CPU)."""
-    from zeldovich_tpu.models.pipeline import Zeldovich
-    from zeldovich_tpu.utils.params import Parameters
+    from zeldovich.models.pipeline import Zeldovich
+    from zeldovich.utils.params import Parameters
 
     def params():
         # BoxSize unique to this test: a distinct SynthConfig, so the
@@ -147,8 +147,8 @@ def test_df64_mixed_mode_parity():
     """--dtype df64: f32 draws + f64 transforms, <1e-6 displacement error."""
     from pathlib import Path
 
-    from zeldovich_tpu.models.pipeline import Zeldovich
-    from zeldovich_tpu.utils.params import Parameters
+    from zeldovich.models.pipeline import Zeldovich
+    from zeldovich.utils.params import Parameters
 
     def params(box):
         return Parameters.from_dict(
@@ -177,3 +177,16 @@ def test_df64_mixed_mode_parity():
     dsp_w = np.stack([want[0].imag, want[1].real, want[1].imag])
     err = np.abs(dsp_g - dsp_w).max()
     assert err < 1e-6, f"df64 displacement error {err:.3e} >= 1e-6"
+
+
+@pytest.mark.parametrize("k", [1, 17, 65, 68, 128])
+def test_imatmul_exact_any_contraction(k):
+    """int8 limb products are exact int32 sums for every contraction
+    length, including those imatmul zero-pads to a multiple of 4."""
+    rng = np.random.default_rng(k)
+    a = rng.integers(-64, 65, size=(3, 5, k)).astype(np.int8)
+    b = rng.integers(-64, 65, size=(k, 7)).astype(np.int8)
+    got = np.asarray(ozaki.imatmul(jnp.asarray(a), jnp.asarray(b)))
+    assert got.dtype == np.int32 and got.shape == (3, 5, 7)
+    want = a.astype(np.int64) @ b.astype(np.int64)
+    np.testing.assert_array_equal(got, want)

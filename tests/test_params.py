@@ -2,14 +2,14 @@
 
 import pytest
 
-from zeldovich_tpu.utils.parseheader import (
+from zeldovich.utils.parseheader import (
     DONT_CARE,
     MUST_DEFINE,
     ParseError,
     ParseHeader,
     PHType,
 )
-from zeldovich_tpu.utils.params import ParameterError, Parameters
+from zeldovich.utils.params import ParameterError, Parameters
 
 BASE = {
     "BoxSize": 100.0,

@@ -8,7 +8,7 @@ its outputs for fixed seeds/advances.
 import numpy as np
 import pytest
 
-from zeldovich_tpu.ops import pcg
+from zeldovich.ops import pcg
 
 GOLDEN_SEED12346_FIRST10 = [
     13376226141762278320,

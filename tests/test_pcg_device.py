@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from zeldovich_tpu.ops import pcg, pcg_device
+from zeldovich.ops import pcg, pcg_device
 
 
 def rand128(rng, shape):

@@ -5,11 +5,11 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from zeldovich_tpu.models.pipeline import Zeldovich
-from zeldovich_tpu.utils.params import Parameters
-from zeldovich_tpu.utils.power import PowerSpectrum
+from zeldovich.models.pipeline import Zeldovich
+from zeldovich.utils.params import Parameters
+from zeldovich.utils.power import PowerSpectrum
 
-ASSETS = Path(__file__).parent.parent / "zeldovich_tpu" / "assets"
+ASSETS = Path(__file__).parent.parent / "zeldovich" / "assets"
 
 
 def make_params(ppd=32, **over):

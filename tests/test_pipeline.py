@@ -8,12 +8,12 @@ import numpy as np
 import pytest
 
 from reference_emulator import emulate_kgrid, inverse_fft3
-from zeldovich_tpu.models.pipeline import Zeldovich
-from zeldovich_tpu.utils.output import OutputWriter, read_particles, setup_output_dir
-from zeldovich_tpu.utils.params import Parameters
-from zeldovich_tpu.utils.power import PowerSpectrum
+from zeldovich.models.pipeline import Zeldovich
+from zeldovich.utils.output import OutputWriter, read_particles, setup_output_dir
+from zeldovich.utils.params import Parameters
+from zeldovich.utils.power import PowerSpectrum
 
-ASSETS = Path(__file__).parent.parent / "zeldovich_tpu" / "assets"
+ASSETS = Path(__file__).parent.parent / "zeldovich" / "assets"
 
 
 def make_params(tmp_path, ppd=8, **over):
@@ -218,7 +218,7 @@ def test_f_NL_matches_emulator(tmp_path):
     ],
 )
 def test_part1_part2_checkpoint(tmp_path, flags):
-    from zeldovich_tpu.cli import main
+    from zeldovich.cli import main
 
     par = tmp_path / "run.par"
     param_dict = dict(

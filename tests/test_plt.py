@@ -9,12 +9,12 @@ import pytest
 import jax.numpy as jnp
 
 from reference_emulator import emulate_kgrid
-from zeldovich_tpu.ops import plt as plt_ops
-from zeldovich_tpu.ops.modes import SynthConfig, SynthTables, synthesize_slab
-from zeldovich_tpu.utils.params import Parameters
-from zeldovich_tpu.utils.power import PowerSpectrum, mode_amplitude_tables
+from zeldovich.ops import plt as plt_ops
+from zeldovich.ops.modes import SynthConfig, SynthTables, synthesize_slab
+from zeldovich.utils.params import Parameters
+from zeldovich.utils.power import PowerSpectrum, mode_amplitude_tables
 
-ASSETS = Path(__file__).parent.parent / "zeldovich_tpu" / "assets"
+ASSETS = Path(__file__).parent.parent / "zeldovich" / "assets"
 
 
 def synthetic_table(ppd_e: int, seed=0) -> np.ndarray:

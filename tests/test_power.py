@@ -7,10 +7,10 @@ import numpy as np
 import pytest
 from scipy import integrate
 
-from zeldovich_tpu.utils.params import Parameters
-from zeldovich_tpu.utils.power import PowerSpectrum, mode_amplitude_tables, romberg
+from zeldovich.utils.params import Parameters
+from zeldovich.utils.power import PowerSpectrum, mode_amplitude_tables, romberg
 
-ASSETS = Path(__file__).parent.parent / "zeldovich_tpu" / "assets"
+ASSETS = Path(__file__).parent.parent / "zeldovich" / "assets"
 
 
 def make_params(**over):

@@ -7,14 +7,14 @@ import pytest
 
 from pathlib import Path
 
-from zeldovich_tpu.models.pipeline import Zeldovich
-from zeldovich_tpu.ops import fft
-from zeldovich_tpu.parallel.mesh import grid_sharding, make_mesh
-from zeldovich_tpu.parallel.pencil_fft import fft3_sharded, ifft3_sharded
-from zeldovich_tpu.parallel.synthesis import reflected, synthesize_sharded
-from zeldovich_tpu.utils.params import Parameters
+from zeldovich.models.pipeline import Zeldovich
+from zeldovich.ops import fft
+from zeldovich.parallel.mesh import grid_sharding, make_mesh
+from zeldovich.parallel.pencil_fft import fft3_sharded, ifft3_sharded
+from zeldovich.parallel.synthesis import reflected, synthesize_sharded
+from zeldovich.utils.params import Parameters
 
-ASSETS = Path(__file__).parent.parent / "zeldovich_tpu" / "assets"
+ASSETS = Path(__file__).parent.parent / "zeldovich" / "assets"
 
 pytestmark = pytest.mark.skipif(
     jax.device_count() < 8, reason="needs 8 virtual devices"
@@ -70,7 +70,7 @@ def test_reflected():
 
 @pytest.mark.slow
 def test_sharded_synthesis_matches_single():
-    from zeldovich_tpu.ops.modes import synthesize_slab
+    from zeldovich.ops.modes import synthesize_slab
 
     param = make_params(ppd=16)
     model = Zeldovich(param)
@@ -111,8 +111,8 @@ def test_jit_end_to_end_sharded_compiles_once():
 
     @jax.jit
     def step(tables):
-        from zeldovich_tpu.parallel.pencil_fft import ifft3_sharded
-        from zeldovich_tpu.parallel.synthesis import synthesize_sharded
+        from zeldovich.parallel.pencil_fft import ifft3_sharded
+        from zeldovich.parallel.synthesis import synthesize_sharded
 
         k = synthesize_sharded(model.cfg, tables, mesh, dtype=model.dtype)
         return ifft3_sharded(k, mesh)
@@ -199,8 +199,8 @@ def test_sharded_k_cutoff_matches_single():
 @pytest.mark.slow
 def test_sharded_qoneslab_output(tmp_path):
     """qoneslab through the sharded compute + streamed output."""
-    from zeldovich_tpu.utils.output import OutputWriter, setup_output_dir
-    from zeldovich_tpu.utils.streamio import stream_xspace
+    from zeldovich.utils.output import OutputWriter, setup_output_dir
+    from zeldovich.utils.streamio import stream_xspace
 
     outs = {}
     for mode in ("single", "sharded"):
@@ -234,8 +234,8 @@ def test_sharded_qoneslab_output(tmp_path):
 )
 def test_pencil_final_matches_dense(mesh_shape):
     """The 2-transpose (pencil-layout-output) transform: same global array."""
-    from zeldovich_tpu.parallel.pencil_fft import ifft3_sharded_final
-    from zeldovich_tpu.parallel.pencil_mmfft import ifft3_pair_sharded_final
+    from zeldovich.parallel.pencil_fft import ifft3_sharded_final
+    from zeldovich.parallel.pencil_mmfft import ifft3_pair_sharded_final
 
     mesh = make_mesh(mesh_shape=mesh_shape)
     rng = np.random.default_rng(2)
@@ -304,29 +304,3 @@ def test_sharded_half_zplanes_layout():
         idx = s.index
         assert idx[-1] == slice(None, None, None) or idx[-1].start is None
         assert s.data.shape[-1] == param.ppd
-
-
-def test_sharded_half_kernel_route_matches(monkeypatch):
-    """The fused draw kernel inside shard_map (TPU route, forced on CPU
-    via ZT_PALLAS_FORCE -> interpret mode, check_vma=False) == the XLA
-    draw-chain route == the in-core half path.
-
-    Regression for the kernel-in-shard_map unlock: pallas_call outputs
-    carry no vma annotation, so the kernel route must build its
-    shard_map with check_vma=False and still agree with the checked XLA
-    route.
-    """
-    param = make_params(ppd=16)
-    model = Zeldovich(param, dtype=jnp.float32)
-    mesh = make_mesh(mesh_shape=(4, 2))
-    want = np.asarray(model.xspace_half_pair_sharded(mesh))  # XLA route
-
-    from zeldovich_tpu.ops.modes_real import _use_pallas, pallas_backend_ok
-
-    assert not pallas_backend_ok()  # CPU: kernel route off by default
-    monkeypatch.setenv("ZT_PALLAS_FORCE", "1")
-    assert pallas_backend_ok() and _use_pallas(jnp.float32)
-    got = np.asarray(model.xspace_half_pair_sharded(mesh))
-    np.testing.assert_allclose(
-        got, want, atol=2e-6 * np.abs(want).max(), rtol=0
-    )

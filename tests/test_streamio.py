@@ -5,7 +5,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from zeldovich_tpu.utils.streamio import AsyncSlabWriter, stream_xspace
+from zeldovich.utils.streamio import AsyncSlabWriter, stream_xspace
 
 
 class RecordingWriter:
@@ -79,7 +79,7 @@ def test_pwrite_full_survives_short_writes(monkeypatch, tmp_path):
     """_pwrite_full loops over short kernel writes (the 2 GiB pwrite cap)."""
     import os
 
-    from zeldovich_tpu.utils import output as out_mod
+    from zeldovich.utils import output as out_mod
 
     real_pwrite = os.pwrite
     CAP = 7  # force many short writes
@@ -100,7 +100,7 @@ def test_checkpoint_resave_wipes_stale_chunks(tmp_path):
     """meta.json is written last and a re-save removes stale chunks."""
     import jax.numpy as jnp
 
-    from zeldovich_tpu.utils import checkpoint as ck
+    from zeldovich.utils import checkpoint as ck
 
     big = jnp.arange(2 * 8 * 4 * 4, dtype=jnp.float32).reshape(2, 8, 4, 4)
     p = tmp_path / "ckpt"
